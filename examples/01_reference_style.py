@@ -12,11 +12,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import sys
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")   # drop for real TPU runs
-
-import multigrid_poisson_solver_tpu as mg  # noqa: E402
+import multigrid_poisson as mg
 
 
 def main(cycle_file="schedules/Vcycle.txt"):
@@ -33,7 +29,7 @@ def main(cycle_file="schedules/Vcycle.txt"):
     u, f = cc.init()
     u, err = cc(u, f)
     ua = mg.REFERENCE_PROBLEM.analytic_grid(cc.finest_spec)
-    from multigrid_poisson_solver_tpu.ops.stencils import mean_abs_error
+    from multigrid_poisson.ops.stencils import mean_abs_error
 
     print(f"[compiled]    Error = {float(mean_abs_error(cc.unpad(u), ua)):.6e}")
 

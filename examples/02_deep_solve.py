@@ -1,8 +1,8 @@
 """Deep convergence: solve to 1e-10 relative residual in fp32 arithmetic.
 
-The reference's fp64 host arrays get ~1e-15 floors for free; on TPU the fast
+The reference's fp64 host arrays get ~1e-15 floors for free; here the fast
 path is fp32, so the framework uses double-float iterative refinement
-(refine.py) — fp32 Pallas V-cycles inside, two-word fp32 state outside.
+(refine.py) — fp32 V-cycles inside, two-word fp32 state outside.
 
     python examples/02_deep_solve.py [n]
 """
@@ -14,11 +14,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import sys
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")   # drop for real TPU runs
-
-import multigrid_poisson_solver_tpu as mg  # noqa: E402
+import multigrid_poisson as mg
 
 
 def main(n=257):

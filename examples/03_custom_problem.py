@@ -12,15 +12,11 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-import jax
+import jax.numpy as jnp
 
-jax.config.update("jax_platforms", "cpu")   # drop for real TPU runs
-
-import jax.numpy as jnp  # noqa: E402
-
-import multigrid_poisson_solver_tpu as mg  # noqa: E402
-from multigrid_poisson_solver_tpu.models.problems import Problem  # noqa: E402
-from multigrid_poisson_solver_tpu.solver import SolverConfig  # noqa: E402
+import multigrid_poisson as mg
+from multigrid_poisson.models.problems import Problem
+from multigrid_poisson.solver import SolverConfig
 
 
 def main():

@@ -1,8 +1,7 @@
-"""Multi-chip execution on a device mesh (demo runs on 8 virtual CPU devices).
+"""Multi-device execution on a device mesh (demo runs on 8 virtual CPU devices).
 
-On real hardware drop the platform/device-count overrides: the same code
-row-partitions across TPU chips over ICI (and across hosts via
-parallel.multihost on a pod slice).
+Without the platform/device-count overrides the same code row-partitions
+across the GPUs of a host (and across hosts via parallel.multihost).
 
     python examples/04_multichip.py
 """
@@ -21,9 +20,9 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-import multigrid_poisson_solver_tpu as mg  # noqa: E402
-from multigrid_poisson_solver_tpu.parallel import multihost  # noqa: E402
-from multigrid_poisson_solver_tpu.parallel.mesh import (  # noqa: E402
+import multigrid_poisson as mg  # noqa: E402
+from multigrid_poisson.parallel import multihost  # noqa: E402
+from multigrid_poisson.parallel.mesh import (  # noqa: E402
     ShardingPolicy, make_mesh,
 )
 

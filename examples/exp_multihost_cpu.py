@@ -1,12 +1,12 @@
 """REAL multi-process execution of the multihost layer (CPU, localhost).
 
 The reference is single-process/single-device (cudaSetDevice(0),
-MG_solver_GPU.cu:58); `parallel.multihost` is the DCN x ICI entry the TPU
-framework owes instead. Until this harness it had only mocked coverage —
+MG_solver_GPU.cu:58); `parallel.multihost` is the hosts x devices entry
+this framework adds. Until this harness it had only mocked coverage —
 this script actually runs `jax.distributed.initialize` across N local
 processes (gloo-backed coordination over localhost), builds
-`multihost.hybrid_block_mesh()` in each (hosts ride the DCN/row axis,
-local devices the ICI/col axis), compiles one block-sharded V-cycle over
+`multihost.hybrid_block_mesh()` in each (hosts ride the row axis, local
+devices the col axis), compiles one block-sharded V-cycle over
 the GLOBAL mesh, executes it, and bit-compares the solution against a
 single-process run of the SAME worker on the same logical 2x2 mesh.
 
@@ -41,9 +41,9 @@ def worker(pid: int, nproc: int, port: int, out: str, local_devs: int):
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     sys.path.insert(0, str(REPO))
-    import multigrid_poisson_solver_tpu as mg
-    from multigrid_poisson_solver_tpu.compiled import compile_program
-    from multigrid_poisson_solver_tpu.parallel import multihost
+    import multigrid_poisson as mg
+    from multigrid_poisson.compiled import compile_program
+    from multigrid_poisson.parallel import multihost
 
     multihost.initialize(f"127.0.0.1:{port}", num_processes=nproc,
                          process_id=pid)
@@ -70,20 +70,19 @@ def worker(pid: int, nproc: int, port: int, out: str, local_devs: int):
     # --- 3-D: the z-plane-sharded cycle over ALL devices (a 1-D ring that
     # --- CROSSES the process boundary — each process owns half the z
     # --- planes; GSPMD kernels, real inter-process collectives)
-    from multigrid_poisson_solver_tpu.compiled3 import compile_program3
-    from multigrid_poisson_solver_tpu.models import poisson3d as p3
-    from multigrid_poisson_solver_tpu.parallel import pallas_shard3 as ps3
-    from multigrid_poisson_solver_tpu.solver import SolverConfig
+    from multigrid_poisson.compiled3 import compile_program3
+    from multigrid_poisson.models import poisson3d as p3
+    from multigrid_poisson.parallel.mesh import ZShardingPolicy3, make_mesh_z
+    from multigrid_poisson.solver import SolverConfig
 
     n3 = 65
-    mesh_z = ps3.make_mesh_z(jax.devices())
-    zpol = ps3.ZShardingPolicy3(mesh_z, threshold_planes=8)
+    mesh_z = make_mesh_z(jax.devices())
+    zpol = ZShardingPolicy3(mesh_z, threshold_planes=8)
     assert zpol.is_sharded(n3)
     prog3 = mg.v_cycle(n3, n_min=5, steps=3, coarse_target=1e-8, coarsen=3)
     with mesh_z:
         cc3 = compile_program3(prog3, p3.REFERENCE_PROBLEM_3D,
                                SolverConfig(omega=6.0 / 7.0,
-                                            kernels="xla",
                                             collect_node_stats=False),
                                policy=zpol)
         u3, f3 = cc3.init()
@@ -138,7 +137,7 @@ def main():
         print("[launcher] 1 process x 4 devices (single-host 2x2 mesh)...",
               flush=True)
         launch(1, 4, a.port, ref)
-        print("[launcher] 2 processes x 2 devices (DCN x ICI 2x2 mesh)...",
+        print("[launcher] 2 processes x 2 devices (hosts x devices 2x2 mesh)...",
               flush=True)
         launch(2, 2, a.port + 1, multi)
         r, m = np.load(ref), np.load(multi)

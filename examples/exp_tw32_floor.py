@@ -11,8 +11,8 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-import multigrid_poisson_solver_tpu as mg
-from multigrid_poisson_solver_tpu.refine import IterativeRefinementSolver
+import multigrid_poisson as mg
+from multigrid_poisson.refine import IterativeRefinementSolver
 
 sizes = [int(s) for s in (sys.argv[1:] or ["257", "513", "1025", "2049"])]
 rows = []

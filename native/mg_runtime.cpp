@@ -1,10 +1,10 @@
-// mg_runtime — native runtime components for multigrid_poisson_solver_tpu.
+// mg_runtime — native runtime components for multigrid_poisson.
 //
 // The reference keeps its whole runtime in C++: the Cycle.txt parser inlined
 // in main() (/root/reference/src/MG_solver_CPU.cpp:70-146 with per-node
 // option reads at :171-189, :307, :331-344), the linked-list level stack
 // (linkedlist.cpp), and the CSV writer (doPrint2File, MG_solver_CPU.cpp:735-754).
-// In the TPU framework the *compute* path is JAX/XLA/Pallas, but the runtime
+// In this framework the *compute* path is JAX/XLA, but the runtime
 // around it stays native: this library provides
 //
 //   * mg_parse_cycle  — the complete Cycle.txt grammar → a flat, typed

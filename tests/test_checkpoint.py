@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-import multigrid_poisson_solver_tpu as mg
-from multigrid_poisson_solver_tpu.refine import IterativeRefinementSolver
-from multigrid_poisson_solver_tpu.utils.checkpoint import (
+import multigrid_poisson as mg
+from multigrid_poisson.refine import IterativeRefinementSolver
+from multigrid_poisson.utils.checkpoint import (
     CheckpointManager, SolverState, load_checkpoint, save_checkpoint,
 )
 

@@ -7,7 +7,7 @@ import sys
 import numpy as np
 import pytest
 
-from multigrid_poisson_solver_tpu.utils.io import (
+from multigrid_poisson.utils.io import (
     read_solution_csv,
     solution_filename,
     write_solution_csv,
@@ -17,7 +17,7 @@ SCHEDULES = pathlib.Path(__file__).resolve().parent.parent / "schedules"
 
 
 def test_solution_filename():
-    assert solution_filename("/a/b/Vcycle.txt") == "Sol_TPU_Vcycle.txt"
+    assert solution_filename("/a/b/Vcycle.txt") == "Sol_GPU_Vcycle.txt"
 
 
 def test_csv_roundtrip(tmp_path, rng):
@@ -31,7 +31,7 @@ def test_csv_roundtrip(tmp_path, rng):
 def test_format_grid_matches_doprint_layout():
     """Console dump layout of doPrint (MG_solver_CPU.cpp:726-733): top y row
     first, %2.3e values each followed by a space."""
-    from multigrid_poisson_solver_tpu.utils.io import format_grid
+    from multigrid_poisson.utils.io import format_grid
 
     u = np.arange(4.0).reshape(2, 2)
     lines = format_grid(u).splitlines()
@@ -52,7 +52,7 @@ def test_csv_format_matches_reference_layout(tmp_path):
 def run_cli(args, cwd):
     env_cmd = (
         "import jax; jax.config.update('jax_platforms', 'cpu'); "
-        "import sys; from multigrid_poisson_solver_tpu.cli import main; "
+        "import sys; from multigrid_poisson.cli import main; "
         "sys.exit(main(sys.argv[1:]))"
     )
     return subprocess.run(
@@ -70,7 +70,7 @@ def test_cli_end_to_end(tmp_path):
     assert res.returncode == 0, res.stderr
     assert "===== Final Result =====" in res.stdout
     assert "Error = 6.6" in res.stdout  # 6.658e-04, reference parity
-    out = tmp_path / "Sol_TPU_test.txt"
+    out = tmp_path / "Sol_GPU_test.txt"
     assert out.exists()
     grid = read_solution_csv(out)
     assert grid.shape == (16, 16)
@@ -82,7 +82,7 @@ def test_solution_csv_byte_identical_to_reference_binary(tmp_path):
     frozen in tests/data) — format AND numerics parity in one check."""
     import jax.numpy as jnp
 
-    from multigrid_poisson_solver_tpu import (
+    from multigrid_poisson import (
         REFERENCE_PROBLEM, SolverConfig, parse_cycle_path, solve,
     )
 
@@ -111,4 +111,4 @@ def test_cli_3d_deep_solve(tmp_path):
     assert "Relative residual = " in res.stdout
     rel = float(res.stdout.split("Relative residual = ")[1].split()[0])
     assert rel <= 1e-9
-    assert (tmp_path / "Sol_TPU_test.txt.npz").exists()
+    assert (tmp_path / "Sol_GPU_test.txt.npz").exists()

@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from multigrid_poisson_solver_tpu import GridSpec, REFERENCE_PROBLEM
-from multigrid_poisson_solver_tpu.ops import (
+from multigrid_poisson import GridSpec, REFERENCE_PROBLEM
+from multigrid_poisson.ops import (
     dense_solve,
     exact_solve,
     gauss_seidel_solve,

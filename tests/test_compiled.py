@@ -5,15 +5,14 @@ against the reference's behavior in test_solver.py); the compiled path must
 reproduce it for every schedule family, single-device and sharded.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import multigrid_poisson_solver_tpu as mg
-from multigrid_poisson_solver_tpu.compiled import compile_program
-from multigrid_poisson_solver_tpu.ops import stencils
-from multigrid_poisson_solver_tpu.parallel.mesh import ShardingPolicy, make_mesh
+import multigrid_poisson as mg
+from multigrid_poisson.compiled import compile_program
+from multigrid_poisson.ops import stencils
+from multigrid_poisson.parallel.mesh import ShardingPolicy, make_mesh
 
 PROBLEM = mg.REFERENCE_PROBLEM
 
@@ -140,88 +139,3 @@ def test_compiled_sharded_trigger_matches_single_device():
     np.testing.assert_allclose(np.asarray(u_sharded), np.asarray(u_single),
                                rtol=1e-4, atol=1e-6)
 
-
-def test_trigger_batch_converges_like_unbatched():
-    """trigger_batch > 1 (per-sweep-error batching) reaches the same
-    solution quality as the exact-semantics loop — it may only OVERSHOOT in
-    sweeps, never undershoot, so the trigger error can only be <= plus noise."""
-    program = mg.v_cycle(65, n_min=9, steps=-1, coarse_option=0)
-    results = {}
-    for batch in (1, 4):
-        cfg = mg.SolverConfig(omega=0.8, kernels="pallas",
-                              trigger_batch=batch,
-                              collect_node_stats=False)
-        eng = mg.compile_program(program, mg.REFERENCE_PROBLEM, cfg,
-                                 donate=False)
-        u, f = eng.init()
-        u, err = eng(u, f)
-        spec = eng.finest_spec
-        ana = mg.REFERENCE_PROBLEM.analytic_grid(spec, jnp.float32)
-        results[batch] = (float(err),
-                          float(jnp.mean(jnp.abs(eng.unpad(u) - ana))))
-    e1, q1 = results[1]
-    e4, q4 = results[4]
-    assert q4 == pytest.approx(q1, rel=0.05)      # same solution quality
-    assert e4 <= e1 * 1.05                        # never less smoothing
-
-
-def test_trigger_watchdog_cap():
-    """Big-N trigger loops are bounded so a device while_loop cannot outlive
-    the TPU worker watchdog (VERDICT r2 item 8); small levels keep the
-    configured cap, explicit small caps always win."""
-    from multigrid_poisson_solver_tpu.solver import (
-        TRIGGER_WALL_BUDGET_S, effective_trigger_cap)
-
-    assert effective_trigger_cap(100_000, 65, platform="tpu") == 100_000
-    big2 = effective_trigger_cap(100_000, 8193, platform="tpu")
-    big3 = effective_trigger_cap(100_000, 513, dim=3, platform="tpu")
-    # modeled worst-case wall stays within the budget
-    assert big2 * 12 * 8193**2 * 4 / 819e9 <= TRIGGER_WALL_BUDGET_S * 1.01
-    assert big3 * 12 * 513**3 * 4 / 819e9 <= TRIGGER_WALL_BUDGET_S * 1.01
-    assert big2 < 100_000 and big3 < 100_000
-    assert effective_trigger_cap(50, 8193, platform="tpu") == 50
-    # the guard is a TPU-watchdog workaround: non-TPU backends never clamp
-    # a user-configured cap (ADVICE r3)
-    assert effective_trigger_cap(100_000, 8193, platform="cpu") == 100_000
-
-
-def test_trigger_auto_batch(monkeypatch):
-    """trigger_batch="auto" (round 5 default), 2-D: with the whole-loop
-    kernel tiers masked off so the per-sweep tail runs, early-stop
-    triggers reproduce trigger_batch=1 exactly and long-running triggers
-    converge like the unbatched loop with only extra smoothing."""
-    import numpy as np
-
-    from multigrid_poisson_solver_tpu.ops import pallas_chain as chain
-
-    monkeypatch.setattr(chain, "trigger_fits", lambda *a, **k: False)
-    monkeypatch.setattr(chain, "trigger_stream_fits", lambda *a, **k: False)
-    program = mg.v_cycle(65, n_min=9, steps=-1, coarse_option=0)
-
-    def run(cfg):
-        eng = mg.compile_program(program, mg.REFERENCE_PROBLEM, cfg,
-                                 donate=False)
-        u, f = eng.init()
-        u1, err = eng(u, f)
-        return np.asarray(eng.unpad(u1)), float(err), eng
-
-    # early-stop: must match batch=1 bit-for-bit (phase 1 IS that loop)
-    cfg = dict(omega=0.8, kernels="pallas", collect_node_stats=False)
-    u_auto, e_auto, _ = run(mg.SolverConfig(trigger=3e-2,
-                                            trigger_batch="auto", **cfg))
-    u_one, e_one, _ = run(mg.SolverConfig(trigger=3e-2, trigger_batch=1,
-                                          **cfg))
-    np.testing.assert_array_equal(u_auto, u_one)
-    assert e_auto == e_one
-
-    # many-sweep: phase 2 batches; same quality, never less smoothing
-    u_auto, e_auto, eng = run(mg.SolverConfig(trigger=1e-5,
-                                              trigger_batch="auto", **cfg))
-    u_one, e_one, _ = run(mg.SolverConfig(trigger=1e-5, trigger_batch=1,
-                                          **cfg))
-    spec = eng.finest_spec
-    ana = mg.REFERENCE_PROBLEM.analytic_grid(spec, jnp.float32)
-    q_auto = float(jnp.mean(jnp.abs(jnp.asarray(u_auto) - ana)))
-    q_one = float(jnp.mean(jnp.abs(jnp.asarray(u_one) - ana)))
-    assert q_auto == pytest.approx(q_one, rel=0.05)
-    assert e_auto <= e_one * 1.05

@@ -8,11 +8,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import multigrid_poisson_solver_tpu as mg
-from multigrid_poisson_solver_tpu.compiled3 import compile_program3
-from multigrid_poisson_solver_tpu.models import poisson3d as p3
-from multigrid_poisson_solver_tpu.solver import SolverConfig
-from multigrid_poisson_solver_tpu.solver3 import Solver3D
+import multigrid_poisson as mg
+from multigrid_poisson.compiled3 import compile_program3
+from multigrid_poisson.models import poisson3d as p3
+from multigrid_poisson.solver import SolverConfig
+from multigrid_poisson.solver3 import Solver3D
 
 
 def _agree(program, cfg, problem=p3.REFERENCE_PROBLEM_3D, atol=1e-5):
@@ -53,7 +53,7 @@ def test_fmg_consistency():
 
 
 def test_dense_coarse_consistency():
-    from multigrid_poisson_solver_tpu.schedule import (Ascend, CoarseSolve,
+    from multigrid_poisson.schedule import (Ascend, CoarseSolve,
                                                        CycleProgram, Descend)
     program = CycleProgram(
         length=1.0, min_x=0.0, min_y=0.0, n_max=17,
@@ -79,157 +79,35 @@ def test_warm_chaining_across_calls():
     assert d3 < d1 * 1e-2  # ~1/36 contraction per cycle, two extra cycles
 
 
-# ---- pallas-mode (padded-resident) engine consistency ----------------------
-# kernels="pallas" keeps every level's state in the padded brick layout and
-# routes smoothing/residual/2:1-transfers through ops.pallas3d / ops.padded3
-# (interpret mode off-TPU). Results must match the plain engine.
+# ---- engine consistency grid ------------------------------------------------
+# The schedule/config points of the retired padded-brick engine's
+# consistency tests, now on the one XLA engine: aligned n=65 levels,
+# full-weighting restriction, fixed-step and trigger levels under both
+# error metrics, FMG.
 
 
-def _cfg_pallas(**kw):
+def _cfg(**kw):
     kw.setdefault("omega", 6.0 / 7.0)
     kw.setdefault("collect_node_stats", False)
-    kw.setdefault("kernels", "pallas")
     return SolverConfig(**kw)
 
 
-def test_pallas_small_vcycle_consistency():
-    """n=17: every node takes a fallback hop (n < 65) — exercises the padded
-    state plumbing, zero_interior and the pad/unpad boundaries."""
-    program = mg.v_cycle(17, n_min=5, steps=3, coarse_target=1e-8, coarsen=3)
-    _agree(program, _cfg_pallas())
+@pytest.mark.parametrize("n,steps,cfg_kw", [
+    pytest.param(17, 3, {}, id="v17"),
+    pytest.param(65, 2, {}, id="v65-aligned"),
+    pytest.param(65, 2, {"restriction": "full_weighting"}, id="v65-fw"),
+    pytest.param(17, -1, {"trigger": 1e-4}, id="trigger17"),
+    pytest.param(65, -1, {"trigger": 1e-4}, id="trigger65"),
+    pytest.param(65, 2, {"compat_error": "gpu"}, id="v65-gpu"),
+    pytest.param(65, -1, {"trigger": 1e-3, "compat_error": "gpu"},
+                 id="trigger65-gpu"),
+])
+def test_engine_consistency_grid(n, steps, cfg_kw):
+    program = mg.v_cycle(n, n_min=5, steps=steps, coarse_target=1e-8,
+                         coarsen=3)
+    _agree(program, _cfg(**cfg_kw))
 
 
-def test_pallas_aligned_vcycle_kernels_engage():
-    """n=65 finest level runs the fused brick kernels + padded transfers."""
-    program = mg.v_cycle(65, n_min=5, steps=2, coarse_target=1e-8, coarsen=3)
-    _agree(program, _cfg_pallas())
-
-
-def test_pallas_full_weighting_restriction():
-    program = mg.v_cycle(65, n_min=5, steps=2, coarse_target=1e-8, coarsen=3)
-    _agree(program, _cfg_pallas(restriction="full_weighting"))
-
-
-def test_pallas_trigger_fallback_consistency():
-    program = mg.v_cycle(17, n_min=5, steps=-1, coarse_target=1e-8, coarsen=3)
-    _agree(program, _cfg_pallas(trigger=1e-4))
-
-
-def test_pallas_fmg_consistency():
+def test_fmg17_consistency_dense_cfg():
     program = mg.fmg(17, n_min=5, steps=3, coarse_target=1e-8, coarsen=3)
-    _agree(program, _cfg_pallas())
-
-
-def test_pallas_warm_chaining():
-    program = mg.v_cycle(9, n_min=5, steps=3, coarse_target=1e-9, coarsen=3)
-    cfg = _cfg_pallas(dtype=jnp.float64)
-    cc = compile_program3(program, p3.REFERENCE_PROBLEM_3D, cfg)
-    u, f = cc.init()
-    u1, _ = cc(u, f)
-    u3, _ = cc(cc(u1, f, warm=True)[0], f, warm=True)
-    fe = (p3.REFERENCE_PROBLEM_3D.source_grid(9, jnp.float64)
-          + p3.REFERENCE_PROBLEM_3D.boundary_grid(9, jnp.float64))
-    ue = p3.dense_solve3(fe, 1.0 / 8)
-    assert float(jnp.abs(u3 - ue).max()) < float(jnp.abs(u1 - ue).max()) * 1e-2
-
-
-def test_pallas_trigger_fast_path_consistency():
-    """n=65 trigger levels run the fused sweep+metric kernel (one HBM pass
-    per trigger sweep) and must take the same sweeps as the interpreted
-    XLA engine."""
-    program = mg.v_cycle(65, n_min=5, steps=-1, coarse_target=1e-8,
-                         coarsen=3)
-    _agree(program, _cfg_pallas(trigger=1e-4))
-
-
-def test_pallas_gpu_metric_fused_consistency():
-    """compat='gpu' now rides the fused kernel (err_mode='gpu') instead of
-    falling back to XLA; engines must still agree."""
-    program = mg.v_cycle(65, n_min=5, steps=2, coarse_target=1e-8, coarsen=3)
-    _agree(program, _cfg_pallas(compat_error="gpu"))
-
-
-def test_pallas_gpu_trigger_fused_consistency():
-    program = mg.v_cycle(65, n_min=5, steps=-1, coarse_target=1e-8,
-                         coarsen=3)
-    _agree(program, _cfg_pallas(trigger=1e-3, compat_error="gpu"))
-
-
-@pytest.mark.slow
-def test_trigger_batch3_converges_like_unbatched():
-    """3-D trigger_batch > 1 reaches the same solution quality as the
-    exact-semantics loop (may only overshoot in sweeps, never undershoot)."""
-    program = mg.v_cycle(65, n_min=5, steps=-1, coarse_target=1e-8,
-                         coarsen=3)
-    results = {}
-    for batch in (1, 4):
-        cfg = _cfg_pallas(trigger=1e-4, trigger_batch=batch)
-        cc = compile_program3(program, p3.REFERENCE_PROBLEM_3D, cfg)
-        u, f = cc.init()
-        u1, err = cc(u, f)
-        ana = p3.REFERENCE_PROBLEM_3D.analytic_grid(65, jnp.float32)
-        results[batch] = (float(err), float(jnp.mean(jnp.abs(u1 - ana))))
-    e1, q1 = results[1]
-    e4, q4 = results[4]
-    assert q4 == pytest.approx(q1, rel=0.05)      # same solution quality
-    assert e4 <= e1 * 1.05                        # never less smoothing
-
-
-@pytest.mark.slow
-def test_trigger_batch3_gpu_metric():
-    """trigger_batch under compat='gpu' (the per_sweep gpu kernel branch)."""
-    program = mg.v_cycle(65, n_min=5, steps=-1, coarse_target=1e-8,
-                         coarsen=3)
-    results = {}
-    for batch in (1, 4):
-        cfg = _cfg_pallas(trigger=1e-3, trigger_batch=batch,
-                          compat_error="gpu")
-        cc = compile_program3(program, p3.REFERENCE_PROBLEM_3D, cfg)
-        u, f = cc.init()
-        u1, err = cc(u, f)
-        ana = p3.REFERENCE_PROBLEM_3D.analytic_grid(65, jnp.float32)
-        results[batch] = (float(err), float(jnp.mean(jnp.abs(u1 - ana))))
-    e1, q1 = results[1]
-    e4, q4 = results[4]
-    assert q4 == pytest.approx(q1, rel=0.05)
-    assert e4 <= e1 * 1.05
-
-
-def test_trigger_auto_batch3(monkeypatch):
-    """trigger_batch="auto" (round 5 default): with the whole-loop kernel
-    tiers masked off (so the per-sweep tail actually runs), an
-    early-stopping trigger reproduces trigger_batch=1 EXACTLY (phase 1 is
-    the same loop), and a long-running trigger converges like the
-    unbatched loop with only extra smoothing (the batched phase 2)."""
-    from multigrid_poisson_solver_tpu.ops import pallas3d as p3k
-
-    monkeypatch.setattr(p3k, "trigger3_fits", lambda *a, **k: False)
-    monkeypatch.setattr(p3k, "trigger3_stream_fits",
-                        lambda *a, **k: False)
-    program = mg.v_cycle(65, n_min=5, steps=-1, coarse_target=1e-8,
-                         coarsen=3)
-
-    def run(cfg):
-        cc = compile_program3(program, p3.REFERENCE_PROBLEM_3D, cfg)
-        u, f = cc.init()
-        u1, err = cc(u, f)
-        return np.asarray(u1), float(err)
-
-    # early-stop regime: loose trigger stops within the 2B warmup -> the
-    # auto path never enters phase 2 and must match batch=1 bit-for-bit
-    # (3e-2 still outlives the warmup at this 65-cubed config — 0.5 stops
-    # every level at the first tested slope)
-    u_auto, e_auto = run(_cfg_pallas(trigger=0.5, trigger_batch="auto"))
-    u_one, e_one = run(_cfg_pallas(trigger=0.5, trigger_batch=1))
-    np.testing.assert_array_equal(u_auto, u_one)
-    assert e_auto == e_one
-
-    # many-sweep regime: tight trigger outlives the warmup -> phase 2
-    # batches; same solution quality, never less smoothing
-    u_auto, e_auto = run(_cfg_pallas(trigger=1e-4, trigger_batch="auto"))
-    u_one, e_one = run(_cfg_pallas(trigger=1e-4, trigger_batch=1))
-    ana = p3.REFERENCE_PROBLEM_3D.analytic_grid(65, jnp.float32)
-    q_auto = float(jnp.mean(jnp.abs(jnp.asarray(u_auto) - ana)))
-    q_one = float(jnp.mean(jnp.abs(jnp.asarray(u_one) - ana)))
-    assert q_auto == pytest.approx(q_one, rel=0.05)
-    assert e_auto <= e_one * 1.05
+    _agree(program, _cfg(compat_error="gpu"))

@@ -1,46 +1,54 @@
 """compiled3 under a z-plane sharding policy: the SAME CycleProgram walk,
-multi-chip. Sharded levels run the per-shard brick kernels / fused legs /
-trigger loops with psum'd error partials; coarse levels replicate. Outputs
-must BIT-match the single-chip compiled3 engine on the 8-device virtual CPU
-mesh (the per-shard kernels preserve the unsharded pass chunking, so even
-CPU-interpret runs agree exactly; the error metric matches to the fp32
-psum-reassociation level).
+multi-device. Every level array is constrained to the policy's sharding —
+contiguous z-plane blocks while the level is large, replicated below the
+threshold — and GSPMD partitions the plain-jnp ops. Results must match the
+single-device compiled3 engine on the 8-device virtual CPU mesh: elementwise
+stencils partition exactly, only reductions (error metrics, the GS coarse
+solve's stopping test) reorder.
 
-2-D analog: tests/test_compiled_sharded.py (the compiled engine under
-parallel.mesh.ShardingPolicy). Reference: the whole schedule walk,
-/root/reference/src/MG_solver_CPU.cpp:148-260 — single device there."""
+2-D analog: tests/test_compiled.py's sharded cases (parallel.mesh.
+ShardingPolicy). Reference: the whole schedule walk,
+MG_solver_CPU.cpp:148-260 — single device there."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import multigrid_poisson_solver_tpu as mg
-from multigrid_poisson_solver_tpu.compiled3 import compile_program3
-from multigrid_poisson_solver_tpu.models import poisson3d as p3
-from multigrid_poisson_solver_tpu.ops import pallas3d as pk3
-from multigrid_poisson_solver_tpu.parallel import pallas_shard3 as ps3
-from multigrid_poisson_solver_tpu.solver import SolverConfig
+import multigrid_poisson as mg
+from multigrid_poisson.compiled3 import compile_program3
+from multigrid_poisson.models import poisson3d as p3
+from multigrid_poisson.parallel.mesh import (ZShardingPolicy3, make_mesh_z,
+                                             z_sharding)
+from multigrid_poisson.solver import SolverConfig
 
 NDEV = 8
+# max|Δu|/max|u|: elementwise stencils partition exactly; reductions reorder,
+# and the Gauss-Seidel coarse solve's stopping test reads one, so it may
+# stop a sweep earlier or later on the mesh
+TOL = 1e-5
 
 
 @pytest.fixture(scope="module")
 def mesh():
     assert len(jax.devices()) == NDEV
-    return ps3.make_mesh_z(jax.devices())
+    return make_mesh_z(jax.devices())
 
 
 @pytest.fixture(scope="module")
 def policy(mesh):
-    return ps3.ZShardingPolicy3(mesh)
+    return ZShardingPolicy3(mesh, threshold_planes=4)
 
 
 def _cfg(**kw):
     kw.setdefault("omega", 6.0 / 7.0)
-    kw.setdefault("kernels", "pallas")
     kw.setdefault("collect_node_stats", False)
     return SolverConfig(**kw)
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.abs(a - b).max() / np.abs(b).max()
 
 
 def _agree(mesh, policy, program, cfg, err_rel=1e-4):
@@ -52,9 +60,16 @@ def _agree(mesh, policy, program, cfg, err_rel=1e-4):
         ccp = compile_program3(program, prob, cfg, policy=policy)
         us, fs = ccp.init()
         got, gerr = ccp(us, fs)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    assert _rel(got, want) <= TOL
     assert abs(float(gerr) - float(werr)) <= err_rel * max(
         abs(float(werr)), 1e-12)
+    return got
+
+
+def test_policy_shards_large_levels_only(policy):
+    assert policy.is_sharded(65) and policy.is_sharded(33)
+    assert not policy.is_sharded(17)
+    assert policy.spec(17) == jax.sharding.PartitionSpec()
 
 
 def test_policy_vcycle_65(mesh, policy):
@@ -64,7 +79,7 @@ def test_policy_vcycle_65(mesh, policy):
 
 
 def test_policy_vcycle_129_two_sharded_levels(mesh, policy):
-    """129 AND 65 run sharded (fused legs per shard); 33 down replicate."""
+    """129, 65 and 33 run z-sharded; 17 down replicate."""
     _agree(mesh, policy,
            mg.v_cycle(129, n_min=5, steps=3, coarse_target=1e-8, coarsen=3),
            _cfg())
@@ -83,8 +98,8 @@ def test_policy_fmg(mesh, policy):
 
 
 def test_policy_trigger(mesh, policy):
-    """Sharded per-pass trigger loop: one fused per-shard kernel pass
-    (sweep + psum'd metric partial) per trigger sweep."""
+    """Sharded trigger loop: one sweep plus a psum'd metric per iteration;
+    the stop decisions must match the single-device engine."""
     _agree(mesh, policy,
            mg.v_cycle(65, n_min=5, steps=-1, coarse_target=1e-8, coarsen=3),
            _cfg(trigger=1e-3, max_trigger_sweeps=30))
@@ -94,14 +109,6 @@ def test_policy_gpu_metric(mesh, policy):
     _agree(mesh, policy,
            mg.v_cycle(65, n_min=5, steps=3, coarse_target=1e-8, coarsen=3),
            _cfg(compat_error="gpu"))
-
-
-def test_policy_xla_kernels(mesh, policy):
-    """Without the pallas path the policy degrades to GSPMD constraints on
-    the plain-jnp ops — still the same results."""
-    _agree(mesh, policy,
-           mg.v_cycle(65, n_min=5, steps=3, coarse_target=1e-8, coarsen=3),
-           _cfg(kernels="xla"))
 
 
 def test_policy_chained_converges(mesh, policy):
@@ -118,128 +125,175 @@ def test_policy_chained_converges(mesh, policy):
     assert err < 2e-3          # C·h² at n=65
 
 
-@pytest.mark.parametrize("n,steps,compat,fz", [
-    (33, 3, "clean", False),
-    (33, 11, "clean", False),       # multi-pass split
-    (33, 5, "gpu", False),
-    (33, 4, "clean", True),
-    (65, 1, "clean", False),        # the trigger loop's per-sweep shape
-])
-def test_sharded_fused_jacobi3_err(mesh, n, steps, compat, fz):
-    """u BIT-matches the unsharded kernel at the same pass chunking; the
-    psum'd error partial matches to fp32 reduction-order tolerance."""
-    h = 1.0 / (n - 1)
+# ---- z-sharded smoothing vs one device ----------------------------------------
+# The shapes the retired per-shard brick kernels were pinned at: plane counts
+# that do not divide the mesh, multi-pass sweep counts, both error metrics.
+
+def _on_mesh(mesh, fn, *arrays):
+    """``fn`` jitted with its array arguments constrained to z-plane
+    blocks (GSPMD accepts plane counts that do not divide the mesh)."""
+    sh = z_sharding(mesh)
+
+    def run(*a):
+        return fn(*[jax.lax.with_sharding_constraint(x, sh) for x in a])
+
+    with mesh:
+        return jax.jit(run)(*arrays)
+
+
+def _err_rel(compat):
+    """Metric tolerance: the clean metric is a sum of residuals (fp32
+    reassociation); the gpu metric sums |Δu| of the last sweep, a
+    difference that amplifies u's last-bit differences ~|u|/|Δu|-fold."""
+    return 2e-4 if compat == "gpu" else 5e-6
+
+
+def _fields(n):
     prob = p3.REFERENCE_PROBLEM_3D
     f = (prob.source_grid(n) + prob.boundary_grid(n)).astype(jnp.float32)
-    u = (prob.boundary_grid(n) + (0 if fz else 0.01 * f)).astype(jnp.float32)
-    up, fp = pk3.pad_grid3(u), pk3.pad_grid3(f)
-    if fz:
-        up = jnp.zeros_like(up)
-    # replicate the sharded body's pass split (CPU-interpret bit-identity
-    # only holds at equal chunking — the documented FMA-contraction law)
-    nz_loc = ps3.padded_depth3(up.shape[0], NDEV) // NDEV
-    kmax = min(pk3.MAX_FUSED_SWEEPS_3D, nz_loc)
-    last_cap = kmax if compat == "gpu" else min(7, nz_loc - 1)
-    last = min(steps, last_cap)
-    rem, want, first = steps - last, up, True
-    while rem > 0:
-        k = min(rem, kmax)
-        want = pk3.fused_jacobi3_padded(want, fp, n, h, k,
-                                        from_zero=fz and first,
-                                        interpret=True)
-        rem -= k
-        first = False
-    want, raw = pk3.fused_jacobi3_padded(want, fp, n, h, last,
-                                         from_zero=fz and first,
-                                         interpret=True, err_mode=compat)
-    us = jax.device_put(ps3.pad_planes3(up, NDEV), ps3.z_sharding(mesh))
-    fs = jax.device_put(ps3.pad_planes3(fp, NDEV), ps3.z_sharding(mesh))
-    with mesh:
-        got, graw = ps3.sharded_fused_jacobi3_err(
-            us, fs, n, h, steps, 6.0 / 7.0, compat, mesh, from_zero=fz,
-            interpret=True)
-    np.testing.assert_array_equal(np.asarray(got)[:n], np.asarray(want))
-    assert not np.asarray(got)[n:].any()
-    assert float(graw) == pytest.approx(float(raw), rel=5e-6)
+    u = (prob.boundary_grid(n) + 0.01 * f).astype(jnp.float32)
+    return u, f
 
 
-def test_sharded_fused_ascend3_err(mesh):
-    """The fused-err ascend (last-node error inside the leg kernel) matches
-    the unsharded err-fused leg: u bit-exact, psum'd partial to fp32."""
-    from multigrid_poisson_solver_tpu.ops import padded3 as pd3
+@pytest.mark.parametrize("n,steps,compat", [
+    (33, 3, "clean"),
+    (33, 11, "clean"),
+    (33, 5, "gpu"),
+    (33, 4, "clean"),
+    (65, 1, "clean"),
+])
+def test_sharded_smooth3_err(mesh, n, steps, compat):
+    h = 1.0 / (n - 1)
+    u, f = _fields(n)
+    want, werr = p3.smooth3(u, f, h, steps=steps, omega=6.0 / 7.0,
+                            compat=compat)
+    got, gerr = _on_mesh(mesh, lambda u, f: p3.smooth3(
+        u, f, h, steps=steps, omega=6.0 / 7.0, compat=compat), u, f)
+    assert _rel(got, want) <= TOL
+    assert float(gerr) == pytest.approx(float(werr), rel=_err_rel(compat))
+
+
+def test_sharded_prolong_smooth3(mesh):
+    """Ascend leg (trilinear prolongation + add + post-sweeps + metric) on
+    z-sharded operands vs one device."""
+    from multigrid_poisson.solver3 import _prolong_add3
 
     n, steps = 65, 3
     m = (n + 1) // 2
     h = 1.0 / (n - 1)
-    prob = p3.REFERENCE_PROBLEM_3D
-    f = (prob.source_grid(n) + prob.boundary_grid(n)).astype(jnp.float32)
-    u = (prob.boundary_grid(n) + 0.01 * f).astype(jnp.float32)
-    up, fp = pk3.pad_grid3(u), pk3.pad_grid3(f)
-    ec = pk3.pad_grid3((0.1 * prob.source_grid(m)).astype(jnp.float32))
-    cw1 = pd3.prolong3_lanes_p(ec, n, m)
-    want, wraw = pk3.fused_ascend3_padded(up, fp, cw1, n, h, steps,
-                                          interpret=True, err_mode="clean")
+    u, f = _fields(n)
+    ec = (0.1 * p3.REFERENCE_PROBLEM_3D.source_grid(m)).astype(jnp.float32)
 
-    us = jax.device_put(ps3.pad_planes3(up, 2 * NDEV), ps3.z_sharding(mesh))
-    fs = jax.device_put(ps3.pad_planes3(fp, 2 * NDEV), ps3.z_sharding(mesh))
-    nzp = us.shape[0]
-    ecs = jax.device_put(
-        jnp.concatenate([ec, jnp.zeros((nzp // 2 - ec.shape[0],)
-                                       + ec.shape[1:], ec.dtype)], 0),
-        ps3.z_sharding(mesh))
-    with mesh:
-        cw = jax.device_put(pd3.prolong3_lanes_p(ecs, n, m),
-                            ps3.z_sharding(mesh))
-        got, graw = ps3.sharded_fused_ascend3(
-            us, fs, cw, n, h, steps, 6.0 / 7.0, mesh, err_mode="clean",
-            interpret=True)
-    np.testing.assert_array_equal(np.asarray(got)[:n], np.asarray(want))
-    assert float(graw) == pytest.approx(float(wraw), rel=5e-6)
+    def leg(u, f, ec):
+        v = _prolong_add3(ec, u, n)
+        return p3.smooth3(v, f, h, steps=steps, omega=6.0 / 7.0)
+
+    want, werr = leg(u, f, ec)
+    got, gerr = _on_mesh(mesh, leg, u, f, ec)
+    assert _rel(got, want) <= TOL
+    assert float(gerr) == pytest.approx(float(werr), rel=5e-6)
 
 
-@pytest.mark.parametrize("steps,compat", [(3, "clean"), (4, "gpu")])
-def test_sharded_fused_jacobi3_errs(mesh, steps, compat):
-    """Round 5: the batched-trigger sharded kernel — per-iterate metric
-    partials from ONE per-shard pass. u bit-matches the unsharded batched
-    kernel (same chunking); the psum'd errs vector to fp32 reassociation."""
+@pytest.mark.parametrize("compat,trigger", [("clean", 1e-3), ("gpu", 1e-3),
+                                            ("clean", 1e-4)])
+def test_sharded_trigger3(mesh, compat, trigger):
+    """The device-side trigger loop on z-sharded state stops where the
+    single-device loop stops."""
     n = 33
+    h = 1.0 / (n - 1)
+    u, f = _fields(n)
+    args = (h, trigger, 6.0 / 7.0, compat, "jacobi", 200)
+    want, werr, wk = p3.trigger_smooth3(u, f, *args)
+    got, gerr, gk = _on_mesh(
+        mesh, lambda u, f: p3.trigger_smooth3(u, f, *args), u, f)
+    assert int(gk) == int(wk)
+    assert _rel(got, want) <= TOL
+    assert float(gerr) == pytest.approx(float(werr), rel=_err_rel(compat))
+
+
+@pytest.mark.parametrize("negate", [False, True])
+def test_sharded_residual3(mesh, negate):
+    n = 33
+    h = 1.0 / (n - 1)
+    u, f = _fields(n)
+    sign = -1.0 if negate else 1.0
+
+    def res(u, f):
+        return sign * p3.residual3(u, f, h)
+
+    want = res(u, f)
+    got = _on_mesh(mesh, res, u, f)
+    # the partitioned fusion may round the cancelling neighbor sum in
+    # another order: fp32 noise of ~eps·|u|·8/h²
+    atol = 8 * 1.2e-7 * float(jnp.abs(u).max()) / (h * h)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=0,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("restriction", ["sampling", "full_weighting"])
+@pytest.mark.parametrize("steps", [2, 3])
+def test_sharded_descend_leg3(mesh, restriction, steps):
+    """Pre-smoothing + residual + restriction on z-plane blocks whose
+    plane count (65 over 8 devices) does not divide the mesh."""
+    from multigrid_poisson.solver3 import _restrict_residual3
+
+    n, m = 65, 33
+    h = 1.0 / (n - 1)
+    u, f = _fields(n)
+
+    def leg(u, f):
+        v, _ = p3.smooth3(u, f, h, steps=steps, omega=6.0 / 7.0)
+        return _restrict_residual3(v, f, h, m, restriction=restriction)
+
+    want = leg(u, f)
+    got = _on_mesh(mesh, leg, u, f)
+    # the restricted residual carries the residual's fp32 cancellation
+    # noise (≈ eps·|u|·8/h²) once per op that can round differently: each
+    # sweep and the residual itself
+    atol = (steps + 1) * 8 * 1.2e-7 * float(jnp.abs(u).max()) / (h * h)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=0,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("n", [65, 129])
+def test_sharded_v_cycle3(mesh, n):
+    """models.poisson3d.v_cycle3 (the refinement's inner cycle) on
+    z-sharded operands vs one device."""
     h = 1.0 / (n - 1)
     prob = p3.REFERENCE_PROBLEM_3D
     f = (prob.source_grid(n) + prob.boundary_grid(n)).astype(jnp.float32)
-    u = (prob.boundary_grid(n) + 0.01 * f).astype(jnp.float32)
-    up, fp = pk3.pad_grid3(u), pk3.pad_grid3(f)
-    want, werrs = pk3.fused_jacobi3_errs_padded(up, fp, n, h, steps,
-                                                compat=compat,
-                                                interpret=True)
-    us = jax.device_put(ps3.pad_planes3(up, NDEV), ps3.z_sharding(mesh))
-    fs = jax.device_put(ps3.pad_planes3(fp, NDEV), ps3.z_sharding(mesh))
-    with mesh:
-        got, gerrs = ps3.sharded_fused_jacobi3_errs(
-            us, fs, n, h, steps, 6.0 / 7.0, compat, mesh, interpret=True)
-    np.testing.assert_array_equal(np.asarray(got)[:n], np.asarray(want))
-    assert not np.asarray(got)[n:].any()
-    np.testing.assert_allclose(np.asarray(gerrs), np.asarray(werrs),
-                               rtol=5e-6)
+    u = prob.boundary_grid(n).astype(jnp.float32)
+
+    def cyc(u, f):
+        return p3.v_cycle3(u, f, h, pre=2, post=2, coarse_sweeps=20)
+
+    want = cyc(u, f)
+    got = _on_mesh(mesh, cyc, u, f)
+    assert _rel(got, want) <= TOL
 
 
-@pytest.mark.parametrize("batch", [1, 4, "auto"])
-def test_sharded_trigger_batch3(mesh, policy, batch, monkeypatch):
-    """Engine-level: z-sharded trigger schedule under trigger_batch in
-    {1, 4, auto} — same solution quality. The whole-loop tiers are masked
-    so "auto" actually reaches its two-phase branch (by default sharded
-    auto engages only where the unsharded engine would also batch —
-    test_policy_trigger pins that cross-policy exactness)."""
-    monkeypatch.setattr(pk3, "trigger3_fits", lambda *a, **k: False)
-    monkeypatch.setattr(pk3, "trigger3_stream_fits", lambda *a, **k: False)
-    n = 65
-    program = mg.v_cycle(n, n_min=5, steps=-1, coarse_target=1e-8,
-                         coarsen=3)
-    prob = p3.REFERENCE_PROBLEM_3D
-    cfg = _cfg(trigger=1e-3, trigger_batch=batch, max_trigger_sweeps=40)
-    with mesh:
-        cc = compile_program3(program, prob, cfg, policy=policy)
-        u, f = cc.init()
-        u1, err = cc(u, f)
-    q = float(jnp.mean(jnp.abs(u1 - prob.analytic_grid(n))))
-    assert q < 2e-3                      # C·h² at n=65
-    assert float(err) >= 0.0
+def test_sharded_v_cycle3_unsharded_top(mesh):
+    """A grid too small to shard under the policy still runs through it."""
+    pol = ZShardingPolicy3(mesh)              # threshold 8 planes/device
+    assert not pol.is_sharded(33)
+    _agree(mesh, pol,
+           mg.v_cycle(33, n_min=5, steps=2, coarse_option=0, coarsen=3),
+           _cfg())
+
+
+def test_refine3_under_z_sharding_converges(mesh):
+    """The 3-D refinement loop with its state z-sharded reaches its
+    tolerance in the same number of cycles as one device."""
+    from multigrid_poisson.refine3 import IterativeRefinement3
+
+    n = 33
+    s = IterativeRefinement3(p3.REFERENCE_PROBLEM_3D, n, state="tw32",
+                             max_cycles=30)
+    f = s.init_rhs()
+    u0, u1 = s.initial_state()
+    args = (u0, u1, jnp.zeros_like(u0), f)
+    want = s._run(*args, 1e-10, 30)
+    got = _on_mesh(mesh, lambda a, b, c, d: s._run(a, b, c, d, 1e-10, 30),
+                   *args)
+    assert int(got[-1]) == int(want[-1])
+    assert float(got[-2]) <= 1e-10

@@ -3,14 +3,14 @@
 Until round 5 `parallel.multihost` had only mocked n_hosts>1 coverage; this
 test actually spawns 2 local worker processes that each call
 ``jax.distributed.initialize`` (gloo coordination over localhost), build
-``multihost.hybrid_block_mesh()`` (hosts on the DCN/row axis, local devices
-on the ICI/col axis) and run one block-sharded compiled V-cycle over the
+``multihost.hybrid_block_mesh()`` (hosts on the row axis, local devices on
+the col axis) and run one block-sharded compiled V-cycle over the
 GLOBAL 2x2 mesh — then bit-compares the solution against a 1-process run of
 the same worker on the same logical mesh.
 
 Reference analog: none — the reference is single-process/single-device
-(cudaSetDevice(0), MG_solver_GPU.cu:58); this is the distributed backend the
-TPU framework owes instead (SURVEY.md §5).
+(cudaSetDevice(0), MG_solver_GPU.cu:58); this is the distributed backend
+this framework adds (SURVEY.md §5).
 """
 
 import json

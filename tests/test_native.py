@@ -8,10 +8,10 @@ must produce byte-identical files to the Python writer.
 import numpy as np
 import pytest
 
-import multigrid_poisson_solver_tpu as mg
-from multigrid_poisson_solver_tpu import native
-from multigrid_poisson_solver_tpu.schedule import parse_cycle_file, to_cycle_file
-from multigrid_poisson_solver_tpu.utils.io import read_solution_csv, write_solution_csv
+import multigrid_poisson as mg
+from multigrid_poisson import native
+from multigrid_poisson.schedule import parse_cycle_file, to_cycle_file
+from multigrid_poisson.utils.io import read_solution_csv, write_solution_csv
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native library not built")

@@ -8,7 +8,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from multigrid_poisson_solver_tpu.ops import (
+from multigrid_poisson.ops import (
     add_correction,
     jacobi_sweep,
     mean_abs_interior_residual,
@@ -125,7 +125,7 @@ def np_gpu_smoothing_error(u_new, u_old, h):
 
 
 def test_gpu_smoothing_error_matches_reference_formula(fields):
-    from multigrid_poisson_solver_tpu.ops.stencils import gpu_smoothing_error
+    from multigrid_poisson.ops.stencils import gpu_smoothing_error
 
     u, f, h = fields
     u_new = np_jacobi(u, f, h)

@@ -7,9 +7,9 @@ import pytest
 
 pytest.importorskip("orbax.checkpoint")
 
-import multigrid_poisson_solver_tpu as mg
-from multigrid_poisson_solver_tpu.utils.checkpoint import SolverState
-from multigrid_poisson_solver_tpu.utils.orbax_checkpoint import (
+import multigrid_poisson as mg
+from multigrid_poisson.utils.checkpoint import SolverState
+from multigrid_poisson.utils.orbax_checkpoint import (
     OrbaxCheckpointManager,
 )
 
@@ -45,7 +45,7 @@ def test_async_save_commits(tmp_path, rng):
 def test_refinement_resume_through_orbax(tmp_path):
     """Drop-in for the refinement loop's checkpoints= hook: interrupt a tw32
     solve, resume through the Orbax backend, reach the deep target."""
-    from multigrid_poisson_solver_tpu.refine import IterativeRefinementSolver
+    from multigrid_poisson.refine import IterativeRefinementSolver
 
     n, tol = 65, 1e-13
     with OrbaxCheckpointManager(tmp_path / "ck", async_save=False) as mgr:
@@ -64,8 +64,8 @@ def test_refinement_resume_through_orbax(tmp_path):
 def test_refine3_resume_through_orbax(tmp_path):
     """The 3-D refinement loop accepts the Orbax backend too (same
     duck-typed latest/maybe_save contract, cubic padded arrays)."""
-    from multigrid_poisson_solver_tpu.models import poisson3d as p3
-    from multigrid_poisson_solver_tpu.refine3 import IterativeRefinement3
+    from multigrid_poisson.models import poisson3d as p3
+    from multigrid_poisson.refine3 import IterativeRefinement3
 
     n, tol = 33, 1e-11
     with OrbaxCheckpointManager(tmp_path / "ck3", async_save=False) as mgr:

@@ -2,15 +2,16 @@
 
 Every padded op must match its oracle exactly on the true (n, n) corner and
 preserve the layout invariant (pad cells zero) — the hot path depends on it
-(Pallas strips assume pad rows are zero; zoom matmuls assume zero extension).
+(the stencils' rolls assume pad rows are zero; zoom matmuls assume zero
+extension).
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multigrid_poisson_solver_tpu.ops import layout, padded, stencils
-from multigrid_poisson_solver_tpu.ops.zoom import zoom
+from multigrid_poisson.ops import layout, padded, stencils
+from multigrid_poisson.ops.zoom import zoom
 
 SIZES = [17, 64, 129, 257]
 
@@ -115,3 +116,32 @@ def test_mean_abs_error_p(rng):
     got = float(padded.mean_abs_error_p(up, fp, n))
     want = float(jnp.mean(jnp.abs(u - f)))
     assert got == pytest.approx(want, rel=1e-6)
+
+
+@pytest.mark.parametrize("n,m", [(257, 129), (129, 257), (1025, 513),
+                                 (200, 67), (67, 200)])
+@pytest.mark.parametrize("zero_boundary", [False, True])
+def test_zoom_forms_agree(rng, n, m, zero_boundary):
+    """The matmul zoom (SolverConfig.zoom="matmul") and the gather zoom
+    ("take") are the same bilinear operator: they agree to fp32 rounding.
+    A matmul run at reduced input precision (TF32 keeps ~3 digits) would
+    miss by ~1e-3."""
+    u = layout.pad_grid(jnp.asarray(rng.standard_normal((n, n)), jnp.float32))
+    shape = layout.padded_shape(m)
+    a = padded.zoom_p(u, n, m, shape, zero_boundary=zero_boundary)
+    b = padded.zoom_take_p(u, n, m, shape, zero_boundary=zero_boundary)
+    scale = float(jnp.abs(b).max())
+    assert float(jnp.abs(a - b).max()) <= 4 * 1.2e-7 * scale
+
+
+def test_zoom_p_matmuls_request_highest_precision():
+    import jax
+
+    n, m = 33, 17
+    u = jnp.zeros(layout.padded_shape(n), jnp.float32)
+    jaxpr = jax.make_jaxpr(
+        lambda x: padded.zoom_p(x, n, m, layout.padded_shape(m)))(u)
+    dots = [e for e in jaxpr.jaxpr.eqns if e.primitive.name == "dot_general"]
+    assert len(dots) == 2
+    for e in dots:
+        assert str(e.params["precision"]).count("HIGHEST") == 2

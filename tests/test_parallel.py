@@ -12,9 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multigrid_poisson_solver_tpu.ops import stencils
-from multigrid_poisson_solver_tpu.parallel import halo
-from multigrid_poisson_solver_tpu.parallel.mesh import (
+from multigrid_poisson.ops import stencils
+from multigrid_poisson.parallel import halo
+from multigrid_poisson.parallel.mesh import (
     ShardingPolicy, make_mesh, pad_rows, row_sharding, unpad_rows,
 )
 

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from multigrid_poisson_solver_tpu.models import poisson3d as p3
+from multigrid_poisson.models import poisson3d as p3
 
 NDEV = 8
 

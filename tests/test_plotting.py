@@ -7,9 +7,9 @@ matplotlib.use("Agg")
 import numpy as np
 import pytest
 
-from multigrid_poisson_solver_tpu.models import poisson3d as p3
-from multigrid_poisson_solver_tpu.models.problems import REFERENCE_PROBLEM
-from multigrid_poisson_solver_tpu.utils.plotting import (
+from multigrid_poisson.models import poisson3d as p3
+from multigrid_poisson.models.problems import REFERENCE_PROBLEM
+from multigrid_poisson.utils.plotting import (
     comparison_figure, slice_figure3, surface_figure,
 )
 
@@ -36,7 +36,7 @@ def test_slice_figure3_plain(rng):
 
 
 def test_plotting_cli_npz(tmp_path, rng):
-    from multigrid_poisson_solver_tpu.utils import plotting
+    from multigrid_poisson.utils import plotting
 
     u = np.asarray(p3.REFERENCE_PROBLEM_3D.analytic_grid(9))
     npz = tmp_path / "Sol_x.npz"

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multigrid_poisson_solver_tpu.models import poisson3d as p3
+from multigrid_poisson.models import poisson3d as p3
 
 
 def np_residual3(u, f, h):

@@ -3,7 +3,7 @@
 The decisive property: for an fp32 iterate at large N, the *naive* fp32
 residual is eps/h²-noise-dominated while the compensated fp32 residual
 matches the float64-evaluated residual of the same fp32 values. This is the
-TPU-native inversion of the reference's precision layer (C15 in SURVEY.md):
+framework's inversion of the reference's precision layer (C15 in SURVEY.md):
 fp32 storage + error-free transformations instead of fp64 arrays.
 """
 
@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multigrid_poisson_solver_tpu.ops import layout, padded, precision, stencils
+from multigrid_poisson.ops import layout, padded, precision, stencils
 
 
 def _f64_residual(u32, f32, h):
@@ -27,7 +27,7 @@ def _f64_residual(u32, f32, h):
 def _smooth_iterate(n, dtype=jnp.float32):
     """A realistic smooth iterate + RHS at grid size n (not white noise —
     cancellation only bites when neighboring values agree to ~h²)."""
-    import multigrid_poisson_solver_tpu as mg
+    import multigrid_poisson as mg
     spec = mg.GridSpec(n)
     u = mg.REFERENCE_PROBLEM.analytic_grid(spec, dtype)
     f = mg.REFERENCE_PROBLEM.source_grid(spec, dtype)

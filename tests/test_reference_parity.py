@@ -19,7 +19,7 @@ from pathlib import Path
 
 import pytest
 
-import multigrid_poisson_solver_tpu as mg
+import multigrid_poisson as mg
 
 REF_SRC = Path("/root/reference/src")
 SCHEDULES = Path("schedules")

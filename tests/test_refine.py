@@ -10,15 +10,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import multigrid_poisson_solver_tpu as mg
-from multigrid_poisson_solver_tpu.grid import level_sizes
-from multigrid_poisson_solver_tpu.models.problems import sine_problem
-from multigrid_poisson_solver_tpu.ops import padded as P
-from multigrid_poisson_solver_tpu.ops.layout import pad_grid, padded_shape
-from multigrid_poisson_solver_tpu.refine import (
+import multigrid_poisson as mg
+from multigrid_poisson.grid import level_sizes
+from multigrid_poisson.models.problems import sine_problem
+from multigrid_poisson.ops import padded as P
+from multigrid_poisson.ops.layout import pad_grid, padded_shape
+from multigrid_poisson.refine import (
     IterativeRefinementSolver, df_add, residual_df_p, solve_to_tolerance,
 )
-from multigrid_poisson_solver_tpu.solver import SolverConfig
+from multigrid_poisson.solver import SolverConfig
 
 PROBLEM = mg.REFERENCE_PROBLEM
 
@@ -83,7 +83,7 @@ def test_refine_tw32_reaches_1e13():
 
 
 def test_tw_add_exact(rng):
-    from multigrid_poisson_solver_tpu.refine import tw_add
+    from multigrid_poisson.refine import tw_add
 
     u0 = jnp.asarray(rng.standard_normal(200), jnp.float32)
     u1 = jnp.asarray(rng.standard_normal(200) * 1e-8, jnp.float32)
@@ -98,7 +98,7 @@ def test_tw_add_exact(rng):
 
 
 def test_residual_tw_matches_longdouble_truth():
-    from multigrid_poisson_solver_tpu.refine import residual_tw_p, tw_add
+    from multigrid_poisson.refine import residual_tw_p, tw_add
 
     n = 257
     spec = mg.GridSpec(n)
@@ -136,13 +136,13 @@ def test_rel_residual_normalized_by_f_when_source_nonzero():
     n = 65
     rep = solve_to_tolerance(prob, n, tol=1e-9)
     # independently recompute ‖r‖/‖f‖ from the returned state
-    from multigrid_poisson_solver_tpu.refine import residual_df_p
+    from multigrid_poisson.refine import residual_df_p
 
     spec = mg.GridSpec(n)
     f = pad_grid(prob.source_grid(spec, jnp.float32)
                  + prob.boundary_grid(spec, jnp.float32))
     r = residual_df_p(pad_grid(rep.u), pad_grid(rep.u_lo), f, spec.h, n)
-    from multigrid_poisson_solver_tpu.ops.layout import interior_mask
+    from multigrid_poisson.ops.layout import interior_mask
 
     fn = float(jnp.linalg.norm(
         jnp.ravel(f * interior_mask(n, f.shape, jnp.float32))))
@@ -154,8 +154,8 @@ def test_rel_residual_normalized_by_f_when_source_nonzero():
 def test_tw32_checkpoint_resume_keeps_all_words(tmp_path):
     """tw32 chunked persistence: all three state words survive the resume,
     so the deep tolerance is still reachable after an interruption."""
-    from multigrid_poisson_solver_tpu.refine import IterativeRefinementSolver
-    from multigrid_poisson_solver_tpu.utils.checkpoint import CheckpointManager
+    from multigrid_poisson.refine import IterativeRefinementSolver
+    from multigrid_poisson.utils.checkpoint import CheckpointManager
 
     n, tol = 65, 1e-13
     mgr = CheckpointManager(tmp_path / "ck")
@@ -175,8 +175,8 @@ def test_f64_checkpoint_resume_keeps_full_width(tmp_path):
     """f64 chunked persistence (the round-1 NotImplementedError): the state
     saves at full f64 width and the deep tolerance is reachable after an
     interrupted run resumes."""
-    from multigrid_poisson_solver_tpu.refine import IterativeRefinementSolver
-    from multigrid_poisson_solver_tpu.utils.checkpoint import CheckpointManager
+    from multigrid_poisson.refine import IterativeRefinementSolver
+    from multigrid_poisson.utils.checkpoint import CheckpointManager
 
     n, tol = 65, 1e-12
     mgr = CheckpointManager(tmp_path / "ck")
@@ -199,15 +199,15 @@ def test_fw_misalignment_raises_in_both_engines():
     with pytest.raises(ValueError, match="full_weighting"):
         mg.solve(PROBLEM, prog, cfg)
     with pytest.raises(ValueError, match="full_weighting"):
-        from multigrid_poisson_solver_tpu.compiled import compile_program
+        from multigrid_poisson.compiled import compile_program
         cc = compile_program(prog, PROBLEM, cfg, donate=False)
         u, f = cc.init()
         cc(u, f)
 
 
 def test_compiled_iterate_converges():
-    from multigrid_poisson_solver_tpu.compiled import compile_program
-    from multigrid_poisson_solver_tpu.ops.stencils import mean_abs_error
+    from multigrid_poisson.compiled import compile_program
+    from multigrid_poisson.ops.stencils import mean_abs_error
 
     prog = mg.v_cycle(65, n_min=8, steps=3, coarse_option=0)
     cc = compile_program(prog, PROBLEM, donate=False)
@@ -265,8 +265,8 @@ def test_rbgs_sampling_vs_fw_contraction():
     restriction of the one-color RB-GS residual over-corrects (aliased
     checkerboard) while full weighting contracts fast."""
     from functools import partial
-    from multigrid_poisson_solver_tpu.compiled import _run_traced
-    from multigrid_poisson_solver_tpu.models.problems import Problem
+    from multigrid_poisson.compiled import _run_traced
+    from multigrid_poisson.models.problems import Problem
 
     n = 65
     h = mg.GridSpec(n).h
@@ -292,7 +292,7 @@ def test_rbgs_sampling_vs_fw_contraction():
 def test_bf16_inner_cycles_converge():
     """inner_dtype=bfloat16: correction cycles in bf16 still converge the
     fp32-pair outer state (contraction degrades ~0.03 -> ~0.4/cycle — the
-    measured reason bf16 inner cycles are NOT the default; BASELINE.md)."""
+    measured reason bf16 inner cycles are NOT the default)."""
     s = IterativeRefinementSolver(mg.REFERENCE_PROBLEM, 129, state="df32",
                                   max_cycles=40, inner_dtype=jnp.bfloat16)
     rep = s.solve(tol=1e-7)

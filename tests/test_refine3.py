@@ -5,14 +5,13 @@ V-cycles reach relative residuals far below the plain-fp32 floor, with the
 compensated 7-point residuals validated against an f64 oracle.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import multigrid_poisson_solver_tpu as mg
-from multigrid_poisson_solver_tpu.models import poisson3d as p3
-from multigrid_poisson_solver_tpu.refine3 import (
+import multigrid_poisson as mg
+from multigrid_poisson.models import poisson3d as p3
+from multigrid_poisson.refine3 import (
     IterativeRefinement3, residual_df3, residual_tw3, solve_to_tolerance3,
 )
 
@@ -101,58 +100,10 @@ def test_refine3_exported():
     assert mg.solve_to_tolerance3 is solve_to_tolerance3
 
 
-def test_residual_tw3_pallas_matches_jnp(rng):
-    """The brick-streamed mw kernel replicates residual_tw3's op order
-    bit-for-bit (padded layout, interpret mode)."""
-    from multigrid_poisson_solver_tpu.ops.pallas3d import (
-        pad_grid3, residual_tw3_pallas)
-
-    n = 33
-    h = 1.0 / (n - 1)
-    u0 = pad_grid3(jnp.asarray(rng.standard_normal((n, n, n)), jnp.float32))
-    u1 = pad_grid3(jnp.asarray(rng.standard_normal((n, n, n)) * 1e-8,
-                               jnp.float32))
-    u2 = pad_grid3(jnp.asarray(rng.standard_normal((n, n, n)) * 1e-16,
-                               jnp.float32))
-    f = pad_grid3(PROBLEM.source_grid(n, jnp.float32))
-    want = residual_tw3(u0, u1, u2, f, h)
-    got = residual_tw3_pallas(u0, u1, u2, f, n, h, interpret=True)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-def test_residual_df3_pallas_vs_f64_truth(rng):
-    from multigrid_poisson_solver_tpu.ops.pallas3d import (
-        pad_grid3, residual_df3_pallas, unpad_grid3)
-
-    n = 33
-    h = 1.0 / (n - 1)
-    u = rng.standard_normal((n, n, n)).astype(np.float32)
-    lo = (rng.standard_normal((n, n, n)) * 1e-8).astype(np.float32)
-    f = PROBLEM.source_grid(n, jnp.float32)
-    got = unpad_grid3(residual_df3_pallas(
-        pad_grid3(jnp.asarray(u)), pad_grid3(jnp.asarray(lo)),
-        pad_grid3(f), n, h, interpret=True), n)
-    truth = _f64_residual(jnp.asarray(u, jnp.float64)
-                          + jnp.asarray(lo, jnp.float64),
-                          jnp.asarray(f, jnp.float64), h)
-    scale = np.abs(truth).max()
-    assert np.abs(np.asarray(got) - truth).max() < 2e-7 * scale
-
-
-def test_refine3_pallas_path_reaches_tolerance():
-    """End-to-end padded-resident pallas path (interpret mode off-TPU):
-    mw-residual kernels + v_cycle3_p inner cycles."""
-    rep = solve_to_tolerance3(PROBLEM, 33, tol=1e-9, state="tw32",
-                              kernels="pallas", max_cycles=30)
-    assert rep.rel_residual <= 1e-9
-    assert rep.u.shape == (33, 33, 33)
-    assert rep.error_vs_analytic < 4e-3
-
-
 def test_refine3_checkpoint_resume(tmp_path):
     """Chunked solve persists the multi-word state; a fresh solver resumes
     from the checkpoint and finishes without restarting from cycle 0."""
-    from multigrid_poisson_solver_tpu.utils.checkpoint import CheckpointManager
+    from multigrid_poisson.utils.checkpoint import CheckpointManager
 
     n, tol = 33, 1e-11
     # phase 1: budget-capped run that cannot finish
@@ -178,7 +129,7 @@ def test_refine3_checkpoint_resume(tmp_path):
 def test_refine3_resume_exhausted_budget_reports_true_residual(tmp_path):
     """Regression: resuming a checkpoint whose cycle count already hit
     max_cycles used to report rel_residual = inf (the loop never ran)."""
-    from multigrid_poisson_solver_tpu.utils.checkpoint import CheckpointManager
+    from multigrid_poisson.utils.checkpoint import CheckpointManager
 
     n = 33
     mgr = CheckpointManager(tmp_path / "ck")

@@ -4,7 +4,7 @@ import pathlib
 
 import pytest
 
-from multigrid_poisson_solver_tpu.schedule import (
+from multigrid_poisson.schedule import (
     Ascend,
     CoarseSolve,
     Descend,

@@ -17,7 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multigrid_poisson_solver_tpu import (
+from multigrid_poisson import (
     REFERENCE_PROBLEM,
     SolverConfig,
     fmg,
@@ -27,9 +27,9 @@ from multigrid_poisson_solver_tpu import (
     v_cycle,
     w_cycle,
 )
-from multigrid_poisson_solver_tpu.models import sine_problem
-from multigrid_poisson_solver_tpu.ops import relative_residual_norm
-from multigrid_poisson_solver_tpu.solver import MultigridSolver
+from multigrid_poisson.models import sine_problem
+from multigrid_poisson.ops import relative_residual_norm
+from multigrid_poisson.solver import MultigridSolver
 
 SCHEDULES = pathlib.Path(__file__).resolve().parent.parent / "schedules"
 F64 = SolverConfig(dtype=jnp.float64)

@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import multigrid_poisson_solver_tpu as mg
-from multigrid_poisson_solver_tpu.models import poisson3d as p3
-from multigrid_poisson_solver_tpu.ops.zoom import zoom3
-from multigrid_poisson_solver_tpu.solver import SolverConfig
-from multigrid_poisson_solver_tpu.solver3 import Solver3D
+import multigrid_poisson as mg
+from multigrid_poisson.models import poisson3d as p3
+from multigrid_poisson.ops.zoom import zoom3
+from multigrid_poisson.solver import SolverConfig
+from multigrid_poisson.solver3 import Solver3D
 
 
 def _grid3(fn, n, dtype=jnp.float32):
@@ -155,7 +155,7 @@ def test_solver3_rbgs_smoother_fw_restriction():
 
 
 def test_solver3_dense_coarse_option():
-    from multigrid_poisson_solver_tpu.schedule import CoarseSolve, CycleProgram, Descend, Ascend
+    from multigrid_poisson.schedule import CoarseSolve, CycleProgram, Descend, Ascend
     program = CycleProgram(
         length=1.0, min_x=0.0, min_y=0.0, n_max=17,
         instructions=(Descend(9, 3), CoarseSolve(0.0, option=0), Ascend(3)))
@@ -165,7 +165,7 @@ def test_solver3_dense_coarse_option():
 
 
 def test_cli_dim3(tmp_path, capsys):
-    from multigrid_poisson_solver_tpu.cli import main
+    from multigrid_poisson.cli import main
     out = tmp_path / "sol3d.npz"
     rc = main(["1", "schedules/test.txt", "--dim", "3", "--quiet",
                "--omega", "0.857", "--output", str(out), "--platform", "cpu"])

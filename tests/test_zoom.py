@@ -6,7 +6,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from multigrid_poisson_solver_tpu.ops import prolongate, restrict_residual, zoom
+from multigrid_poisson.ops import prolongate, restrict_residual, zoom
 
 
 def np_restriction(u_f, m):
@@ -84,9 +84,10 @@ def test_nested_restriction_is_injection(rng):
 
 
 def test_zoom_matmuls_request_highest_precision():
-    """TPU matmuls round inputs to bf16 unless precision=HIGHEST is requested;
-    the oracle zoom feeds the interpreted engine's transfer operators, so its
-    dot_generals must carry the HIGHEST annotation (VERDICT r1 weak #6)."""
+    """float32 matmuls may run at reduced input precision (TF32 on GPUs)
+    unless precision=HIGHEST is requested; the oracle zoom feeds the
+    interpreted engine's transfer operators, so its dot_generals must carry
+    the HIGHEST annotation (VERDICT r1 weak #6)."""
     import jax
 
     jaxpr = jax.make_jaxpr(lambda x: zoom(x, 9))(jnp.zeros((17, 17), jnp.float32))
